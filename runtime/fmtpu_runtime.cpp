@@ -1,6 +1,6 @@
 // fmtpu native runtime: the non-compute half of the framework.
 //
-// TPU-native equivalents of the reference's C++ runtime layers:
+// Equivalents of the reference's C++ runtime layers:
 //   * streaming IQ source with background prefetch + re-blocking
 //     (ReconstructionBuffer, src/utility/reconstruction_buffer.h, and the
 //     reader loops of fm_demod_no_tuner.cpp:179-189)
@@ -122,8 +122,8 @@ int rt_pcm_next_block_f32(void* handle, float* dst) {
 int rt_pcm_next_block_packed_f32(void* handle, float* dst) {
     // packed u8 ingest (utils/transfer.pack_iq_u8): one f32 word per
     // complex sample, w = I*256 + Q — exact integers < 2^16, half the
-    // host->device bytes of (re, im) f32; the TPU front-end kernel
-    // unpacks and recenters in-VMEM.
+    // host->device bytes of (re, im) f32; the jitted demod unpacks and
+    // recenters on the device.
     auto* r = (PcmReader*)handle;
     std::vector<uint8_t> blk;
     {
@@ -145,9 +145,7 @@ int rt_pcm_next_block_packed_f32(void* handle, float* dst) {
 int rt_pcm_next_block_i8(void* handle, int8_t* dst) {
     // raw int8 plane ingest (utils/transfer.split_iq_i8): dst holds
     // [2, block_pairs] planes of (I-128, Q-128) — 2 bytes per complex
-    // sample, HALF the packed-f32-word bytes; with frontend_int8 the TPU
-    // front end dots straight off these planes (the round-3 production
-    // fast path, kernels/frontend_pallas.py::_ds4_disc_i8_direct_kernel).
+    // sample, HALF the packed-f32-word bytes (the default ingest).
     auto* r = (PcmReader*)handle;
     std::vector<uint8_t> blk;
     {

@@ -1,6 +1,6 @@
 // Golden-output harness: links the UNMODIFIED reference sources (read-only at
 // /root/reference) into a headless demodulator that writes raw f32 stereo
-// audio frames + RDS bytes, used by tests/test_golden.py to validate the TPU
+// audio frames + RDS bytes, used by tests/test_golden.py to validate the JAX
 // framework against the reference implementation on synthetic recordings.
 //
 // Usage: golden_demod <in.pcm> <audio.f32> <rds.bin> <block_size>

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import scipy.signal as sig
 
-from fm_radio_tpu.ops import (
+from fm_radio.ops import (
     create_fir_bpf,
     create_fir_hilbert,
     create_fir_hpf,
@@ -17,7 +17,7 @@ from fm_radio_tpu.ops import (
     create_iir_single_pole_lpf,
     prewarp_normalised_frequency,
 )
-from fm_radio_tpu.ops.windows import window_hamming
+from fm_radio.ops.windows import window_hamming
 
 
 def ref_fir_lpf(n, k):

@@ -9,9 +9,9 @@ needed.
 import numpy as np
 import pytest
 
-from fm_radio_tpu.config import DemodConfig
-from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
-from fm_radio_tpu.models.app import App
+from fm_radio.config import DemodConfig
+from fm_radio.io.synth import FMModulator, ModulatorConfig
+from fm_radio.models.app import App
 
 BLOCK = 32768  # smaller than the default 65536 to keep CPU tests quick
 
@@ -168,7 +168,7 @@ def test_block_size_rds_robustness():
     decisions, however, must be identical."""
     import jax.numpy as jnp
 
-    from fm_radio_tpu.models.demod import demod_block, demod_init_state, make_coeffs
+    from fm_radio.models.demod import demod_block, demod_init_state, make_coeffs
 
     mod = FMModulator(ModulatorConfig())
     groups = [(0x1234, (0 << 12) | (1 << 10), 0xE101, 0x4142)]
@@ -200,7 +200,7 @@ def test_plane_input_matches_complex_input():
     """demod_block([2, C, B] f32 planes) == demod_block([C, B] complex64)."""
     import jax.numpy as jnp
 
-    from fm_radio_tpu.models.demod import demod_block, demod_init_state, make_coeffs
+    from fm_radio.models.demod import demod_block, demod_init_state, make_coeffs
 
     mod = FMModulator(ModulatorConfig())
     iq = mod.generate(16384, left_hz=1000.0, right_hz=3000.0)[None, :]
@@ -275,14 +275,10 @@ def test_process_all_matches_process():
 def test_app_i8_planes_ingest_matches_packed():
     """App fed [2, C, N] int8 planes (split_iq_i8) == App fed packed f32
     words, bitwise, through re-blocking (process) AND the one-dispatch scan
-    (process_all) — with frontend_int8 this is the int8-DIRECT front end
-    (the round-3 production fast path) vs the packed int8 scratch path,
-    which are bit-identical by construction (same int8 operands/dot order).
+    (process_all): both decode to the same exact f32 samples.
     """
-    from dataclasses import replace
-
-    from fm_radio_tpu.io.pcm import c64_to_u8
-    from fm_radio_tpu.utils.transfer import pack_iq_u8, split_iq_i8
+    from fm_radio.io.pcm import c64_to_u8
+    from fm_radio.utils.transfer import pack_iq_u8, split_iq_i8
 
     mod = FMModulator(ModulatorConfig())
     groups = [(0x1234, (0 << 12) | (1 << 10), 0xE101, 0x4142)]
@@ -292,10 +288,9 @@ def test_app_i8_planes_ingest_matches_packed():
     w = pack_iq_u8(u8)                    # [N] f32 words
     i8 = split_iq_i8(u8)[:, None, :]      # [2, 1, N] int8 planes
 
-    cfg = replace(DemodConfig(), frontend_int8=True)
     for batch in (False, True):
-        a_pk = App(block_size=BLOCK, cfg=cfg, channels=1, integer_input=True)
-        a_i8 = App(block_size=BLOCK, cfg=cfg, channels=1, integer_input=True)
+        a_pk = App(block_size=BLOCK, channels=1)
+        a_i8 = App(block_size=BLOCK, channels=1)
         chunk = BLOCK + 4567  # misaligned chunks exercise re-blocking
         for off in range(0, len(w), chunk):
             feed = (a_pk.process_all if batch else a_pk.process)
@@ -309,71 +304,11 @@ def test_app_i8_planes_ingest_matches_packed():
 
 
 @pytest.mark.slow
-def test_interstage_i16_lens():
-    """cfg.interstage_i16 (int16 inter-kernel HBM format, kernels/qformat.py)
-    stays within its quantization budget end to end: audio within ~-55 dB of
-    the f32 pipeline and the decoded RDS groups identical (symbol decisions
-    have tens of dB of margin over the ~-85 dB quantization floor)."""
-    from dataclasses import replace
-
-    import jax.numpy as jnp
-
-    from fm_radio_tpu.models.demod import (
-        demod_block,
-        demod_init_state,
-        make_coeffs,
-    )
-    from fm_radio_tpu.rds.chain import RDSFullChain
-
-    mod = FMModulator(ModulatorConfig())
-    groups = [(0x1234, (0 << 12) | (1 << 10) | seg, 0xE101, w)
-              for seg, w in enumerate((0x4142, 0x4344, 0x4546, 0x4748))]
-    n = BLOCK * 16
-    iq = mod.generate(n, left_hz=1000.0, right_hz=3000.0, rds_groups=groups)
-    # c=8 channels: the PLL/BPSK kernels' channel-major (ct % 8 == 0) form,
-    # the layout the i16 PLL IO requires
-    x = np.broadcast_to(iq, (8, n)).copy()
-
-    outs = {}
-    for name, i16 in (("f32", False), ("i16", True)):
-        cfg = replace(DemodConfig(), loop_impl="pallas", interstage_i16=i16)
-        co = make_coeffs(cfg)
-        st = demod_init_state(cfg, 8)
-        o_audio, o_pred, o_valid = [], [], []
-        for blk in range(n // BLOCK):
-            xb = jnp.asarray(x[:, blk * BLOCK : (blk + 1) * BLOCK])
-            st, o = demod_block(cfg, co, st, xb)
-            o_audio.append(np.asarray(o["audio"]))
-            o_pred.append(np.asarray(o["rds_pred"]))
-            o_valid.append(np.asarray(o["rds_valid"]))
-        outs[name] = (np.concatenate(o_audio, 1),
-                      np.concatenate(o_pred, 1),
-                      np.concatenate(o_valid, 1))
-
-    a_f, a_q = outs["f32"][0][0], outs["i16"][0][0]
-    settle = 2048
-    err = a_q[settle:] - a_f[settle:]
-    snr = 10 * np.log10(
-        (a_f[settle:] ** 2).mean() / ((err ** 2).mean() + 1e-20))
-    assert snr > 55.0, f"i16 inter-stage lens costs too much: {snr:.1f} dB"
-
-    def decode(pred, valid):
-        chain = RDSFullChain()
-        chain.process_symbols(pred[0][valid[0]])
-        return [tuple(b.data for b in g) for g in chain.chain.groups
-                if all(b.is_valid for b in g)]
-
-    g_f = decode(outs["f32"][1], outs["f32"][2])
-    g_q = decode(outs["i16"][1], outs["i16"][2])
-    assert g_f and g_q == g_f
-
-
-@pytest.mark.slow
 def test_update_controls_midstream():
     """Runtime control changes (the reference's GUI dirty-flag redesign,
     broadcast_fm_demod.cpp:330-389): flip to LPR-only and enable de-emphasis
     mid-stream; the carried state survives and the change takes effect."""
-    from fm_radio_tpu.models.demod import BroadcastFMDemod
+    from fm_radio.models.demod import BroadcastFMDemod
 
     mod = FMModulator(ModulatorConfig())
     iq = mod.generate(BLOCK * 6, left_hz=1000.0, right_hz=3000.0)[None, :]
@@ -394,17 +329,20 @@ def test_update_controls_midstream():
         d.update_controls(order_fir_hilbert=129)  # orders are not mutable
 
 
-def test_config_rejects_invalid_band_no():
-    """Unsupported front-end band widths must fail at construction, not
-    deep in Mosaic or via a silent unfused fallback (bench A/B lens)."""
+def test_config_rejects_invalid_loop_impl():
+    """An unknown loop implementation or chunk count fails at construction,
+    not deep in demod_block."""
     import pytest
 
-    from fm_radio_tpu.config import DemodConfig
+    from fm_radio.config import DemodConfig
 
-    for bad in (192, 265, 0):
-        with pytest.raises(ValueError):
-            DemodConfig(frontend_band_no=bad)
-    DemodConfig(frontend_band_no=256)  # supported opt-in
+    for bad in ("mosaic", "kernel", ""):
+        with pytest.raises(ValueError, match="loop_impl"):
+            DemodConfig(loop_impl=bad)
+    with pytest.raises(ValueError, match="pll_time_chunks"):
+        DemodConfig(pll_time_chunks=0)
+    for ok in ("auto", "scan", "pallas"):
+        DemodConfig(loop_impl=ok)
 
 
 @pytest.mark.slow
@@ -450,7 +388,7 @@ def test_noise_produces_no_false_rds_groups():
     decoded from noise would be a correction-logic bug)."""
     import numpy as np
 
-    from fm_radio_tpu.models.app import App
+    from fm_radio.models.app import App
 
     rng = np.random.default_rng(42)
     block = 16384

@@ -15,9 +15,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from fm_radio_tpu.io.pcm import c64_to_u8, u8_to_c64
-from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
-from fm_radio_tpu.models.app import App
+from fm_radio.io.pcm import c64_to_u8, u8_to_c64
+from fm_radio.io.synth import FMModulator, ModulatorConfig
+from fm_radio.models.app import App
 
 BLOCK = 65536
 REF = os.environ.get("REF", "/root/reference")
@@ -196,7 +196,7 @@ def test_controls_match_reference_binary(golden_binary, tmp_path,
     keys to the reference at the signal level."""
     import dataclasses
 
-    from fm_radio_tpu.config import DemodConfig
+    from fm_radio.config import DemodConfig
 
     mod = FMModulator(ModulatorConfig())
     iq = mod.generate(BLOCK * 8, left_hz=1000.0, right_hz=3000.0)
@@ -244,7 +244,7 @@ def test_audio_matches_reference_with_deemphasis(golden_binary, tmp_path):
     implementations) compared against the reference with Tus=50."""
     from dataclasses import replace
 
-    from fm_radio_tpu.config import DemodConfig
+    from fm_radio.config import DemodConfig
 
     mod = FMModulator(ModulatorConfig())
     iq = mod.generate(BLOCK * 8, left_hz=1000.0, right_hz=6000.0)

@@ -1,18 +1,32 @@
-"""Pallas kernel parity tests (interpret mode on CPU) against the lax.scan
-reference implementations."""
+"""Pallas (Triton) loop-kernel parity tests — interpret mode on CPU —
+against the lax.scan reference implementations, plus the wrapper's tile
+choice and padding and demod_block's choice of loop path."""
+
+from dataclasses import replace
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from fm_radio_tpu.config import DemodConfig
-from fm_radio_tpu.kernels.bpsk_pallas import bpsk_sync_pallas
-from fm_radio_tpu.kernels.pll_pallas import pilot_pll_pallas
-from fm_radio_tpu.models.bpsk import bpsk_init_state, bpsk_sync_scan, make_bpsk_params
-from fm_radio_tpu.models.pilot_pll import pilot_pll_init_state, pilot_pll_scan
-from fm_radio_tpu.models.demod import make_coeffs
-from fm_radio_tpu.utils.transfer import init_on_device
+from fm_radio.config import DemodConfig
+from fm_radio.kernels.bpsk_pallas import bpsk_sync_pallas
+from fm_radio.kernels.pll_pallas import (
+    MAX_TILE,
+    check_time_chunks,
+    pad_channels,
+    pick_channel_tile,
+    pilot_pll_pallas,
+)
+from fm_radio.models.bpsk import bpsk_init_state, bpsk_sync_scan
+from fm_radio.models.demod import (
+    demod_block,
+    demod_init_state,
+    loop_kernels_enabled,
+    make_coeffs,
+)
+from fm_radio.models.pilot_pll import pilot_pll_init_state, pilot_pll_scan
+from fm_radio.utils.transfer import init_on_device
 
 RNG = np.random.default_rng(5)
 CFG = DemodConfig()
@@ -29,32 +43,6 @@ def _pilot_signal(c, n):
     return x.astype(np.complex64)
 
 
-def test_pll_pallas_matches_scan():
-    c, n = 4, 512
-    coeffs = make_coeffs(CFG)
-    pilot = jnp.asarray(_pilot_signal(c, n))
-    st0 = init_on_device(pilot_pll_init_state, c)
-
-    st_scan, taps = pilot_pll_scan(coeffs.pll, st0, pilot)
-    st_pal, dt = pilot_pll_pallas(CFG, st0, pilot, interpret=True)
-
-    np.testing.assert_allclose(np.asarray(dt), np.asarray(taps["dt"]), atol=2e-6)
-    for a, b in zip(st_scan, st_pal):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
-
-
-def test_pll_pallas_streaming():
-    c, n = 2, 512
-    pilot = jnp.asarray(_pilot_signal(c, n))
-    st = init_on_device(pilot_pll_init_state, c)
-    st1, dt_full = pilot_pll_pallas(CFG, st, pilot, interpret=True)
-    st2, dt_a = pilot_pll_pallas(CFG, st, pilot[:, : n // 2], interpret=True)
-    st2, dt_b = pilot_pll_pallas(CFG, st2, pilot[:, n // 2 :], interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(dt_full), np.concatenate([dt_a, dt_b], axis=1), atol=2e-6
-    )
-
-
 def _rds_signal(c, n):
     """BPSK-ish signal at 16 kHz, 2 kHz symbols on the Q axis."""
     sps = 8
@@ -64,8 +52,49 @@ def _rds_signal(c, n):
     return x.astype(np.complex64)
 
 
-def test_bpsk_pallas_matches_scan():
-    c, n = 2, 512
+def _wrapped(a, b):
+    d = np.asarray(a) - np.asarray(b)
+    return np.abs(d - np.round(d))
+
+
+# C = 1 (one live station), a full power-of-two tile, and a channel count
+# that needs padding; n not a multiple of the kernel's unroll
+@pytest.mark.parametrize("c", [1, 8, 13])
+def test_pll_pallas_matches_scan(c):
+    n = 517
+    coeffs = make_coeffs(CFG)
+    pilot = jnp.asarray(_pilot_signal(c, n))
+    st0 = init_on_device(pilot_pll_init_state, c)
+
+    st_scan, taps = pilot_pll_scan(coeffs.pll, st0, pilot)
+    st_pal, dt = pilot_pll_pallas(CFG, st0, pilot, interpret=True)
+
+    assert dt.shape == (c, n)
+    # the kernel wraps by t - floor(t + 1/2), the scan by t - round(t): a
+    # tie can land on +-0.5 of the same phase, so compare modulo one cycle
+    assert _wrapped(dt, taps["dt"]).max() < 2e-6
+    for a, b in zip(st_scan, st_pal):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
+
+
+@pytest.mark.parametrize("c", [2, 13])
+def test_pll_pallas_streaming(c):
+    """A block split in two continues exactly from the carried state."""
+    n = 512
+    pilot = jnp.asarray(_pilot_signal(c, n))
+    st = init_on_device(pilot_pll_init_state, c)
+    st1, dt_full = pilot_pll_pallas(CFG, st, pilot, interpret=True)
+    st2, dt_a = pilot_pll_pallas(CFG, st, pilot[:, : n // 2], interpret=True)
+    st2, dt_b = pilot_pll_pallas(CFG, st2, pilot[:, n // 2 :], interpret=True)
+    np.testing.assert_array_equal(
+        np.asarray(dt_full), np.concatenate([dt_a, dt_b], axis=1))
+    for a, b in zip(st1, st2):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("c", [1, 8, 13])
+def test_bpsk_pallas_matches_scan(c):
+    n = 517
     coeffs = make_coeffs(CFG)
     x = jnp.asarray(_rds_signal(c, n))
     st0 = init_on_device(bpsk_init_state, c)
@@ -78,6 +107,7 @@ def test_bpsk_pallas_matches_scan():
     )
     # predicted symbols agree where valid
     v = np.asarray(outs_scan["valid"])
+    assert v.any()
     np.testing.assert_allclose(
         np.asarray(outs_pal["pred"])[v], np.asarray(outs_scan["pred"])[v], atol=1e-5
     )
@@ -88,99 +118,24 @@ def test_bpsk_pallas_matches_scan():
         np.testing.assert_allclose(a, b, atol=1e-5, err_msg=name)
 
 
-@pytest.mark.slow
-def test_demod_block_pallas_path_matches_scan_path():
-    """Full pipeline with loop_impl=pallas (interpret) vs scan."""
-    from dataclasses import replace
-
-    from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
-    from fm_radio_tpu.models.demod import demod_block, demod_init_state
-
-    mod = FMModulator(ModulatorConfig())
-    iq = mod.generate(8192, left_hz=1000.0, right_hz=2000.0)[None, :]
-
-    cfg_scan = replace(CFG, loop_impl="scan")
-    cfg_pal = replace(CFG, loop_impl="pallas")
-    coeffs = make_coeffs(cfg_scan)
-
-    st_s, outs_s = demod_block(cfg_scan, coeffs, demod_init_state(cfg_scan, 1), jnp.asarray(iq))
-    st_p, outs_p = demod_block(cfg_pal, make_coeffs(cfg_pal), demod_init_state(cfg_pal, 1), jnp.asarray(iq))
-
-    # The kernel evaluates the PLL phase detector as wrap(angle(x) + 2pi*t)
-    # (exact) while the scan path mirrors the reference's Chebyshev-phasor +
-    # atan2-polynomial arithmetic (~1e-7/step); through the feedback loop and
-    # the harmonic mixers this shows up as ~1e-4 audio differences.  The
-    # golden test (83 dB vs the compiled reference) is the accuracy gate.
-    np.testing.assert_allclose(
-        np.asarray(outs_p["audio"]), np.asarray(outs_s["audio"]), atol=1e-3
-    )
-    np.testing.assert_array_equal(
-        np.asarray(outs_p["rds_valid"]), np.asarray(outs_s["rds_valid"])
-    )
-
-
-@pytest.mark.slow
-def test_demod_block_chain_fusion_matches_split():
-    """Full-chain megakernel (kernels/chain_pallas.py) vs the split 4-kernel
-    pipeline through demod_block (interpret mode): same audio/RDS outputs
-    and carried state.  c=8, b=8192 is the smallest chain-fusable shape."""
-    from dataclasses import replace
-
-    from fm_radio_tpu.models.demod import demod_block, demod_init_state
-    from fm_radio_tpu.utils.transfer import pack_iq_u8
-
-    from fm_radio_tpu.io.synth import FMModulator
-
-    c, b = 8, 16384
-    iq = FMModulator().generate(b, left_hz=1000.0, right_hz=2000.0)
-    iq_u8 = np.stack(
-        [np.clip(np.round(iq.real + 127.5), 0, 255),
-         np.clip(np.round(iq.imag + 127.5), 0, 255)], axis=-1
-    ).astype(np.uint8)[None].repeat(c, axis=0)
-    w = jnp.asarray(pack_iq_u8(iq_u8))
-
-    cfg_m = replace(CFG, loop_impl="pallas", chain_fusion="auto")
-    cfg_s = replace(CFG, loop_impl="pallas", chain_fusion="split")
-    co = make_coeffs(cfg_m)
-    st0 = demod_init_state(cfg_m, c)
-
-    st_m, outs_m = demod_block(cfg_m, co, st0, w)
-    st_s, outs_s = demod_block(cfg_s, co, st0, w)
-
-    np.testing.assert_allclose(
-        np.asarray(outs_m["audio"]), np.asarray(outs_s["audio"]), atol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(outs_m["rds_pred"]), np.asarray(outs_s["rds_pred"]), atol=2e-4
-    )
-    np.testing.assert_array_equal(
-        np.asarray(outs_m["rds_valid"]), np.asarray(outs_s["rds_valid"])
-    )
-    for k in st_m:
-        for a, bb in zip(jax.tree.leaves(st_m[k]), jax.tree.leaves(st_s[k])):
-            np.testing.assert_allclose(
-                np.asarray(a), np.asarray(bb), rtol=1e-6, atol=1e-5,
-                err_msg=f"state[{k}]",
-            )
-
-    # streaming parity: two half blocks through the megakernel == two half
-    # blocks through the split pipeline (identical per-block semantics for
-    # the L-R offset/AGC updates; both halves stay on their own path —
-    # 8192 is the minimum fusable size).
-    st1m, o1m = demod_block(cfg_m, co, st0, w[:, : b // 2])
-    st2m, o2m = demod_block(cfg_m, co, st1m, w[:, b // 2 :])
-    st1s, o1s = demod_block(cfg_s, co, st0, w[:, : b // 2])
-    st2s, o2s = demod_block(cfg_s, co, st1s, w[:, b // 2 :])
-    np.testing.assert_allclose(
-        np.asarray(o2m["audio"]), np.asarray(o2s["audio"]), atol=2e-5
-    )
+def test_bpsk_pallas_streaming():
+    """A block split in two continues exactly from the carried state."""
+    c, n = 3, 512
+    x = jnp.asarray(_rds_signal(c, n))
+    st = init_on_device(bpsk_init_state, c)
+    st1, o_full = bpsk_sync_pallas(CFG, st, x, interpret=True)
+    st2, o_a = bpsk_sync_pallas(CFG, st, x[:, : n // 2], interpret=True)
+    st2, o_b = bpsk_sync_pallas(CFG, st2, x[:, n // 2 :], interpret=True)
+    for k in ("pred", "valid"):
+        np.testing.assert_array_equal(
+            np.asarray(o_full[k]), np.concatenate([o_a[k], o_b[k]], axis=1))
+    for a, b in zip(st1, st2):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_pll_chunked_matches_sequential():
     """Block-parallel PLL (pll_time_chunks>1): chunk 0 exact, later chunks
     within the documented ~3e-3-cycle band of the sequential trajectory."""
-    from dataclasses import replace
-
     c, n, g = 2, 32768, 4
     t = np.arange(n) / 128000.0
     ph = 2 * np.pi * 19000 * t
@@ -206,404 +161,148 @@ def test_pll_chunked_matches_sequential():
     assert np.sqrt((e**2).mean()) < 4e-3
 
 
-def test_ds4_disc_pallas_matches_ops():
-    """Fused ds4+discriminator kernel (kernels/frontend_pallas.py) vs the
-    unfused ops (polyphase_decimate_p + fm_discriminate_p), streaming split
-    included (the carried tail + prev_theta must hand off exactly)."""
-    from fm_radio_tpu.kernels.frontend_pallas import ds4_disc_pallas
-    from fm_radio_tpu.ops.discriminator import fm_discriminate_p
-    from fm_radio_tpu.ops.fir import polyphase_decimate_p
-
-    c, b = 3, 4096
-    cfg = CFG
-    co = make_coeffs(cfg)
-    nn = int(np.asarray(co.taps_fm_in).shape[0])
-    rng = np.random.default_rng(7)
-    phase = np.cumsum(rng.standard_normal((c, 2 * b)).astype(np.float32) * 0.4, -1)
-    xr = (100 * np.cos(phase)).astype(np.float32)
-    xi = (100 * np.sin(phase)).astype(np.float32)
-
-    # reference: unfused ops over two consecutive blocks
-    st = jnp.zeros((c, nn - 4), jnp.complex64)
-    pt = jnp.zeros((c,), jnp.float32)
-    ys = []
-    for blk in range(2):
-        sl = slice(blk * b, (blk + 1) * b)
-        st, fm_in_p = polyphase_decimate_p(
-            co.taps_fm_in, st, (jnp.asarray(xr[:, sl]), jnp.asarray(xi[:, sl])), 4
-        )
-        pt, y = fm_discriminate_p(
-            pt, fm_in_p, cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in)
-        )
-        ys.append(np.asarray(y))
-    y_ref = np.concatenate(ys, axis=-1)
-
-    # kernel: same two blocks, carried tail/prev handed between calls
-    tail = (jnp.zeros((c, nn - 4), jnp.float32), jnp.zeros((c, nn - 4), jnp.float32))
-    ptk = jnp.zeros((c,), jnp.float32)
-    yk = []
-    for blk in range(2):
-        sl = slice(blk * b, (blk + 1) * b)
-        tail, ptk, y = ds4_disc_pallas(
-            co.taps_fm_in, tail, ptk,
-            (jnp.asarray(xr[:, sl]), jnp.asarray(xi[:, sl])),
-            cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in),
-            interpret=True,
-        )
-        yk.append(np.asarray(y))
-    y_k = np.concatenate(yk, axis=-1)
-
-    assert np.max(np.abs(y_k - y_ref)) < 2e-5
-    # carried states agree too
-    st_np = np.asarray(st)
-    np.testing.assert_allclose(np.asarray(tail[0]), st_np.real, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(tail[1]), st_np.imag, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(ptk), np.asarray(pt), atol=2e-5)
-
-
-@pytest.mark.slow
-def test_ds4_disc_pallas_int8_dots():
-    """int8-MXU front-end variant (quantize_band_int8 + shifted int8 input)
-    vs the bf16 integer fast path: only the ~-89 dB two-plane tap
-    quantization separates them (kernels/frontend_pallas.py int8 notes).
-    Streaming split + packed-ingest form included."""
-    from fm_radio_tpu.kernels.frontend_pallas import ds4_disc_pallas
-    from fm_radio_tpu.utils.transfer import pack_iq_u8
-
-    c, b = 3, 4096
-    cfg = CFG
-    co = make_coeffs(cfg)
-    nn = int(np.asarray(co.taps_fm_in).shape[0])
-    rng = np.random.default_rng(13)
-    phase = np.cumsum(rng.standard_normal((c, 2 * b)).astype(np.float32) * 0.4, -1)
-    iq_u8 = np.stack(
-        [np.round(100 * np.cos(phase) + 127.0),
-         np.round(100 * np.sin(phase) + 127.0)], axis=-1,
-    ).astype(np.uint8)
-    xr = iq_u8[..., 0].astype(np.float32) - 127.0
-    xi = iq_u8[..., 1].astype(np.float32) - 127.0
-
-    def run(x_of_blk, **kw):
-        tail = (jnp.zeros((c, nn - 4), jnp.float32),) * 2
-        pt = jnp.zeros((c,), jnp.float32)
-        ys = []
-        for blk in range(2):
-            tail, pt, y = ds4_disc_pallas(
-                co.taps_fm_in, tail, pt, x_of_blk(blk),
-                cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in),
-                interpret=True, int_input=True, **kw,
-            )
-            ys.append(np.asarray(y))
-        return np.concatenate(ys, axis=-1)
-
-    def planes(blk):
-        sl = slice(blk * b, (blk + 1) * b)
-        return (jnp.asarray(xr[:, sl]), jnp.asarray(xi[:, sl]))
-
-    y_ref = run(planes)
-    y_i8 = run(planes, int8_dots=True)
-    d = y_i8[:, 64:] - y_ref[:, 64:]
-    snr = 10 * np.log10((y_ref[:, 64:] ** 2).mean() / (d**2).mean())
-    assert snr > 80.0, f"int8 front end only {snr:.1f} dB vs bf16 path"
-
-    # packed-ingest form: identical to the planes form (same int8 math)
-    w = pack_iq_u8(iq_u8)
-    y_pk = run(lambda blk: jnp.asarray(w[:, blk * b : (blk + 1) * b]),
-               int8_dots=True)
-    np.testing.assert_array_equal(y_pk, y_i8)
-
-    # int8-DIRECT kernel (i8 planes + int8_dots -> dots straight off the
-    # input ref, no full-tile unpack): same int8 operands, same dot order
-    # -> bit-identical to the scratch int8 paths, including the carried
-    # tail across the streaming split
-    from fm_radio_tpu.utils.transfer import split_iq_i8
-
-    i8 = split_iq_i8(iq_u8)
-    y_dir = run(lambda blk: jnp.asarray(i8[:, :, blk * b : (blk + 1) * b]),
-                int8_dots=True)
-    np.testing.assert_array_equal(y_dir, y_i8)
-
-
-@pytest.mark.slow
-def test_ds4_disc_pallas_i8_planes_ingest():
-    """Raw int8-plane ingest ([2, C, B] of I-128/Q-128, transfer.split_iq_i8)
-    must be BIT-identical to the centered f32-planes integer fast path and to
-    the packed-word form — the kernel's cast+recenter is exact arithmetic.
-    demod_block's dtype dispatch is exercised end to end as well."""
-    from dataclasses import replace
-
-    from fm_radio_tpu.kernels.frontend_pallas import ds4_disc_pallas
-    from fm_radio_tpu.models.demod import demod_block, demod_init_state
-    from fm_radio_tpu.utils.transfer import pack_iq_u8, split_iq_i8
-
-    c, b = 3, 4096
-    cfg = CFG
-    co = make_coeffs(cfg)
-    nn = int(np.asarray(co.taps_fm_in).shape[0])
-    rng = np.random.default_rng(17)
-    phase = np.cumsum(rng.standard_normal((c, 2 * b)).astype(np.float32) * 0.4, -1)
-    iq_u8 = np.stack(
-        [np.round(100 * np.cos(phase) + 127.0),
-         np.round(100 * np.sin(phase) + 127.0)], axis=-1,
-    ).astype(np.uint8)
-    i8 = split_iq_i8(iq_u8)  # [2, c, 2b] int8
-    assert i8.dtype == np.int8
+def test_pll_chunked_gcd_lane_count():
+    """Chunked PLL whose C*G channels need padding to the tile (5*2 = 10 ->
+    16): must run, with chunk 0 bit-exact vs the sequential kernel."""
+    c, n, g = 5, 4096, 2
+    t = np.arange(n) / 128000.0
+    x = (np.exp(2j * np.pi * 19000 * t)[None, :] * np.ones((c, 1))).astype(
+        np.complex64
+    )
+    pilot = jnp.asarray(x)
+    cfg_par = replace(CFG, pll_time_chunks=g, pll_chunk_warmup=512)
+    st0 = init_on_device(pilot_pll_init_state, c)
+    _, dt_seq = pilot_pll_pallas(CFG, st0, pilot, interpret=True)
+    _, dt_par = pilot_pll_pallas(cfg_par, st0, pilot, interpret=True)
     np.testing.assert_array_equal(
-        i8.astype(np.int32) + 128, np.moveaxis(iq_u8, -1, 0))
-    xr = iq_u8[..., 0].astype(np.float32) - 127.0
-    xi = iq_u8[..., 1].astype(np.float32) - 127.0
-
-    def run(x_of_blk):
-        tail = (jnp.zeros((c, nn - 4), jnp.float32),) * 2
-        pt = jnp.zeros((c,), jnp.float32)
-        ys = []
-        for blk in range(2):
-            tail, pt, y = ds4_disc_pallas(
-                co.taps_fm_in, tail, pt, x_of_blk(blk),
-                cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in),
-                interpret=True, int_input=True,
-            )
-            ys.append(np.asarray(y))
-        return np.concatenate(ys, axis=-1)
-
-    y_planes = run(lambda blk: (jnp.asarray(xr[:, blk * b:(blk + 1) * b]),
-                                jnp.asarray(xi[:, blk * b:(blk + 1) * b])))
-    y_i8 = run(lambda blk: jnp.asarray(i8[:, :, blk * b:(blk + 1) * b]))
-    np.testing.assert_array_equal(y_i8, y_planes)
-
-    # demod_block dtype dispatch: i8 form == packed form through the whole
-    # chain, on both the fused (loop_impl=pallas, interpret) and the unfused
-    # XLA fallback paths
-    w = pack_iq_u8(iq_u8)[:, :b]
-    for impl in ("pallas", "scan"):
-        cfg_i = replace(CFG, loop_impl=impl)
-        st0 = demod_init_state(cfg_i, c)
-        _, outs_pk = demod_block(cfg_i, co, st0, jnp.asarray(w))
-        _, outs_i8 = demod_block(cfg_i, co, st0, jnp.asarray(i8[:, :, :b]))
-        np.testing.assert_array_equal(
-            np.asarray(outs_i8["audio"]), np.asarray(outs_pk["audio"]),
-            err_msg=f"loop_impl={impl}")
-        np.testing.assert_array_equal(
-            np.asarray(outs_i8["rds_pred"]), np.asarray(outs_pk["rds_pred"]),
-            err_msg=f"loop_impl={impl}")
+        np.asarray(dt_par)[:, : n // g], np.asarray(dt_seq)[:, : n // g]
+    )
 
 
-@pytest.mark.parametrize("use_deemph", [False, True])
+def test_pll_pallas_non_power_of_two_channel_tile():
+    """c=2560 (80 tiles) and c=37 (padded to 64): every tile matches."""
+    coeffs = make_coeffs(CFG)
+    for c, n in ((2560, 48), (37, 64)):
+        pilot = jnp.tile(jnp.asarray(_pilot_signal(4, n)), (-(-c // 4), 1))[:c]
+        st0 = init_on_device(pilot_pll_init_state, c)
+        _, taps = pilot_pll_scan(coeffs.pll, st0, pilot)
+        _, dt = pilot_pll_pallas(CFG, st0, pilot, interpret=True)
+        assert _wrapped(dt, taps["dt"]).max() < 2e-6, c
+
+
+def test_bpsk_pallas_gcd_channel_tile():
+    """c=768 (24 tiles of 32): output-identical to the scan."""
+    c, n = 768, 256
+    coeffs = make_coeffs(CFG)
+    x = jnp.asarray(_rds_signal(c, n))
+    st0 = init_on_device(bpsk_init_state, c)
+
+    st_scan, outs_scan = bpsk_sync_scan(coeffs.bpsk, st0, x)
+    st_pal, outs_pal = bpsk_sync_pallas(CFG, st0, x, interpret=True)
+    np.testing.assert_array_equal(
+        np.asarray(outs_pal["valid"]), np.asarray(outs_scan["valid"])
+    )
+    for name in st_scan._fields:
+        np.testing.assert_allclose(
+            np.asarray(getattr(st_scan, name)),
+            np.asarray(getattr(st_pal, name)), atol=1e-5, err_msg=name,
+        )
+
+
+@pytest.mark.parametrize("c, tile, padded", [
+    (1, 1, 1), (5, 8, 8), (32, 32, 32), (33, 32, 64), (2048, 32, 2048),
+    (3000, 32, 3008),
+])
+def test_pick_channel_tile(c, tile, padded):
+    """Power-of-two tile up to MAX_TILE; channels padded to whole tiles."""
+    assert MAX_TILE == 32
+    assert pick_channel_tile(c) == (tile, padded)
+
+
+def test_pad_channels():
+    x = jnp.arange(12, dtype=jnp.float32).reshape(2, 6)
+    assert pad_channels(x, 6) is x
+    y = pad_channels(x, 8)
+    assert y.shape == (2, 8)
+    np.testing.assert_array_equal(np.asarray(y[:, :6]), np.asarray(x))
+    np.testing.assert_array_equal(np.asarray(y[:, 6:]), 0.0)
+
+
+@pytest.mark.parametrize("loop_impl, taps, want", [
+    ("auto", False, False),   # CPU backend: the scan
+    ("auto", True, False),
+    ("scan", False, False),
+    ("pallas", True, True),   # forced: the kernels even with taps asked for
+])
+def test_loop_kernels_enabled(loop_impl, taps, want):
+    assert jax.default_backend() == "cpu"
+    assert loop_kernels_enabled(DemodConfig(loop_impl=loop_impl), taps) is want
+
+
+def test_time_chunks_refused_on_scan_path():
+    """pll_time_chunks is implemented by the kernel path only: the scan
+    path refuses it instead of silently running the sequential loop."""
+    with pytest.raises(ValueError, match="pll_time_chunks"):
+        loop_kernels_enabled(DemodConfig(loop_impl="scan", pll_time_chunks=2))
+
+
+def test_time_chunks_refused_for_short_blocks():
+    cfg = DemodConfig(pll_time_chunks=4, pll_chunk_warmup=4096)
+    check_time_chunks(cfg, 32768)  # 8192-sample chunks: fine
+    for n in (16384, 32770):       # chunks <= warm-up / not divisible
+        with pytest.raises(ValueError, match="pll_time_chunks=4"):
+            check_time_chunks(cfg, n)
+
+
+def test_forced_kernels_need_a_gpu_or_the_interpreter():
+    """loop_impl="pallas" on the CPU fails loudly
+    (the Triton route has no CPU lowering) instead of quietly running the
+    kernels through the interpreter."""
+    cfg = DemodConfig(loop_impl="pallas")
+    x = jnp.zeros((2, 1, 4096), jnp.float32)
+    with pytest.raises(Exception, match="(?i)interpret mode"):
+        demod_block(cfg, make_coeffs(cfg), demod_init_state(cfg, 1), x)
+
+
 @pytest.mark.slow
-def test_midend_pallas_matches_ops(use_deemph):
-    """Fused ds2+deemph+hilbert+peak+theta kernel (kernels/midend_pallas.py)
-    vs the unfused ops, streaming split included."""
-    from dataclasses import replace
+def test_demod_block_pallas_path_matches_scan_path(monkeypatch):
+    """Full pipeline with loop_impl=pallas (interpret) vs scan."""
+    from functools import partial
 
-    from fm_radio_tpu.kernels.midend_pallas import midend_pallas
-    from fm_radio_tpu.models.demod import demod_init_state
-    from fm_radio_tpu.ops.agc import agc_update_gain
-    from fm_radio_tpu.ops.fir import hilbert_fir_p, polyphase_decimate
-    from fm_radio_tpu.ops.iir import iir_filter, iir_filter_planes
+    from fm_radio.io.synth import FMModulator, ModulatorConfig
+    from fm_radio.models import demod
 
-    cfg = replace(CFG, use_deemphasis_filter=use_deemph)
-    co = make_coeffs(cfg)
-    c, b4 = 3, 2048
-    rng = np.random.default_rng(11)
-    x = rng.standard_normal((c, 2 * b4)).astype(np.float32) * 0.3
+    for name in ("pilot_pll_pallas", "bpsk_sync_pallas"):
+        monkeypatch.setattr(demod, name,
+                            partial(getattr(demod, name), interpret=True))
+    jax.clear_caches()  # no trace of the compiled-kernel path may be reused
 
-    st_ref = demod_init_state(cfg, c)
-    st_k = demod_init_state(cfg, c)
-    for blk in range(2):
-        xb = jnp.asarray(x[:, blk * b4 : (blk + 1) * b4])
+    mod = FMModulator(ModulatorConfig())
+    iq = mod.generate(8192, left_hz=1000.0, right_hz=2000.0)[None, :]
 
-        # unfused reference
-        st_ref = dict(st_ref)
-        st_ref["ds_fm_out"], fm_out = polyphase_decimate(
-            co.taps_fm_out, st_ref["ds_fm_out"], xb, 2
-        )
-        if use_deemph:
-            st_ref["deemph"], fm_out = iir_filter(
-                co.deemph_b, co.deemph_a, st_ref["deemph"], fm_out
-            )
-        st_ref["hilbert"], iq_p = hilbert_fir_p(
-            co.taps_hilbert, st_ref["hilbert"], fm_out
-        )
-        st_ref["peak_pilot"], pk_p = iir_filter_planes(
-            co.peak_b, co.peak_a, st_ref["peak_pilot"], iq_p
-        )
-        st_ref["agc_pilot"] = agc_update_gain(st_ref["agc_pilot"], pk_p, 1.0)
-        th_ref = np.arctan2(np.asarray(pk_p[1]), np.asarray(pk_p[0])) / (2 * np.pi)
+    cfg_scan = replace(CFG, loop_impl="scan")
+    cfg_pal = replace(CFG, loop_impl="pallas")
+    coeffs = make_coeffs(cfg_scan)
 
-        # fused kernel
-        st_k, iq_k, th_k = midend_pallas(co, cfg, st_k, xb, interpret=True)
+    _, outs_s = demod_block(cfg_scan, coeffs, demod_init_state(cfg_scan, 1), jnp.asarray(iq))
+    _, outs_p = demod_block(cfg_pal, coeffs, demod_init_state(cfg_pal, 1), jnp.asarray(iq))
 
-        np.testing.assert_allclose(
-            np.asarray(iq_k[0]), np.asarray(iq_p[0]), atol=5e-5)
-        np.testing.assert_allclose(
-            np.asarray(iq_k[1]), np.asarray(iq_p[1]), atol=5e-5)
-        np.testing.assert_allclose(np.asarray(th_k), th_ref, atol=1e-4)
-        np.testing.assert_allclose(
-            np.asarray(st_k["agc_pilot"]), np.asarray(st_ref["agc_pilot"]),
-            rtol=1e-4)
-        np.testing.assert_allclose(
-            np.asarray(st_k["hilbert"]), np.asarray(st_ref["hilbert"]), atol=2e-5)
-        np.testing.assert_allclose(
-            np.asarray(st_k["peak_pilot"]["y_hist"]),
-            np.asarray(st_ref["peak_pilot"]["y_hist"]), atol=2e-4)
-
-
-def test_extract_pallas_matches_ops():
-    """Fused extraction kernel (kernels/extract_pallas.py) vs the unfused
-    LPR/LMR/RDS ops, streaming split included."""
-    from fm_radio_tpu.kernels.extract_pallas import extract_pallas
-    from fm_radio_tpu.models.demod import demod_init_state
-    from fm_radio_tpu.ops.fir import polyphase_decimate_p
-    from fm_radio_tpu.ops.mixer import apply_harmonic_pll_p
-
-    cfg = CFG
-    co = make_coeffs(cfg)
-    c, b8 = 3, 2048
-    rng = np.random.default_rng(13)
-    xr = rng.standard_normal((c, 2 * b8)).astype(np.float32) * 0.4
-    xi = rng.standard_normal((c, 2 * b8)).astype(np.float32) * 0.4
-    dt = (rng.random((c, 2 * b8)).astype(np.float32) - 0.5)
-    off = rng.standard_normal((c,)).astype(np.float32) * 0.1
-    h_lmr = cfg.analog.f_audio_lmr_center / cfg.analog.f_pilot
-    h_rds = cfg.analog.f_rds_center / cfg.analog.f_pilot
-
-    st_r = demod_init_state(cfg, c)
-    st_r = dict(st_r, lmr_phase_err=jnp.asarray(off))
-    st_k = demod_init_state(cfg, c)
-    st_k = dict(st_k, lmr_phase_err=jnp.asarray(off))
-    for blk in range(2):
-        sl = slice(blk * b8, (blk + 1) * b8)
-        iq = (jnp.asarray(xr[:, sl]), jnp.asarray(xi[:, sl]))
-        dtb = jnp.asarray(dt[:, sl])
-
-        st_r = dict(st_r)
-        st_r["ds_audio_lpr"], lpr_r = polyphase_decimate_p(
-            co.taps_audio_lpr, st_r["ds_audio_lpr"], iq, 4, imag_out=False
-        )
-        mix2 = apply_harmonic_pll_p(dtb, iq, h_lmr, st_r["lmr_phase_err"])
-        st_r["ds_audio_lmr"], lmr_r = polyphase_decimate_p(
-            co.taps_audio_lmr, st_r["ds_audio_lmr"], mix2, 4
-        )
-        mix3 = apply_harmonic_pll_p(dtb, iq, h_rds, 0.0)
-        st_r["ds_rds"], rds_r = polyphase_decimate_p(
-            co.taps_rds, st_r["ds_rds"], mix3, 8
-        )
-
-        st_k, lpr_k, lmr_k, rds_k, pow_k = extract_pallas(
-            co, cfg, st_k, iq, dtb, interpret=True
-        )
-
-        # the in-kernel RDS AGC power sum must match the ops-path reduction
-        pow_r = np.sum(np.asarray(rds_r[0]) ** 2 + np.asarray(rds_r[1]) ** 2,
-                       axis=-1)
-        np.testing.assert_allclose(np.asarray(pow_k), pow_r, rtol=2e-4)
-
-        np.testing.assert_allclose(np.asarray(lpr_k), np.asarray(lpr_r), atol=5e-5)
-        np.testing.assert_allclose(np.asarray(lmr_k[0]), np.asarray(lmr_r[0]), atol=5e-5)
-        np.testing.assert_allclose(np.asarray(lmr_k[1]), np.asarray(lmr_r[1]), atol=5e-5)
-        np.testing.assert_allclose(np.asarray(rds_k[0]), np.asarray(rds_r[0]), atol=5e-5)
-        np.testing.assert_allclose(np.asarray(rds_k[1]), np.asarray(rds_r[1]), atol=5e-5)
-        for key in ("ds_audio_lpr", "ds_audio_lmr", "ds_rds"):
-            np.testing.assert_allclose(
-                np.asarray(st_k[key].real), np.asarray(st_r[key].real), atol=5e-5)
-            np.testing.assert_allclose(
-                np.asarray(st_k[key].imag), np.asarray(st_r[key].imag), atol=5e-5)
-
-
-def test_ds4_disc_pallas_int_input():
-    """int_input=True must be EXACT for integer-valued planes (u8 grid):
-    integers <= 256 are exact in bf16, so the x-lo skip loses nothing."""
-    from fm_radio_tpu.kernels.frontend_pallas import ds4_disc_pallas
-
-    cfg = CFG
-    co = make_coeffs(cfg)
-    nn = int(np.asarray(co.taps_fm_in).shape[0])
-    c, b = 2, 2048
-    rng = np.random.default_rng(3)
-    xr = rng.integers(-127, 129, (c, b)).astype(np.float32)
-    xi = rng.integers(-127, 129, (c, b)).astype(np.float32)
-    tail = (jnp.zeros((c, nn - 4), jnp.float32), jnp.zeros((c, nn - 4), jnp.float32))
-    pt = jnp.zeros((c,), jnp.float32)
-
-    _, _, y_full = ds4_disc_pallas(
-        co.taps_fm_in, tail, pt, (jnp.asarray(xr), jnp.asarray(xi)),
-        cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in), interpret=True)
-    _, _, y_int = ds4_disc_pallas(
-        co.taps_fm_in, tail, pt, (jnp.asarray(xr), jnp.asarray(xi)),
-        cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in), interpret=True,
-        int_input=True)
-    np.testing.assert_allclose(np.asarray(y_int), np.asarray(y_full), atol=1e-5)
-
-
-def test_ds4_disc_pallas_packed_input():
-    """Packed u8 words (I*256+Q, one f32/sample) must unpack EXACTLY to the
-    recentered planes — bit-identical fm_demod vs the int-input plane path."""
-    from fm_radio_tpu.kernels.frontend_pallas import ds4_disc_pallas
-    from fm_radio_tpu.utils.transfer import pack_iq_u8
-
-    cfg = CFG
-    co = make_coeffs(cfg)
-    nn = int(np.asarray(co.taps_fm_in).shape[0])
-    c, b = 2, 2048
-    rng = np.random.default_rng(7)
-    iq_u8 = rng.integers(0, 256, (c, b, 2)).astype(np.uint8)
-    xr = iq_u8[..., 0].astype(np.float32) - 127.0
-    xi = iq_u8[..., 1].astype(np.float32) - 127.0
-    w = pack_iq_u8(iq_u8)
-    tail = (jnp.zeros((c, nn - 4), jnp.float32), jnp.zeros((c, nn - 4), jnp.float32))
-    pt = jnp.zeros((c,), jnp.float32)
-
-    _, _, y_pl = ds4_disc_pallas(
-        co.taps_fm_in, tail, pt, (jnp.asarray(xr), jnp.asarray(xi)),
-        cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in), interpret=True,
-        int_input=True)
-    _, _, y_pk = ds4_disc_pallas(
-        co.taps_fm_in, tail, pt, jnp.asarray(w),
-        cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in), interpret=True)
-    np.testing.assert_array_equal(np.asarray(y_pk), np.asarray(y_pl))
-
-
-def test_ds4_disc_pallas_wide_band():
-    """n_out_sub=256 (half the MXU dots, the dot-issue-bound front end's
-    wide-band lens) must be output-identical to the default 128 band —
-    same taps, same windows, only the sub-matmul partitioning changes."""
-    from fm_radio_tpu.kernels.frontend_pallas import ds4_disc_pallas
-    from fm_radio_tpu.utils.transfer import pack_iq_u8
-
-    cfg = CFG
-    co = make_coeffs(cfg)
-    nn = int(np.asarray(co.taps_fm_in).shape[0])
-    c, b = 2, 4096  # b % (256*4) == 0 so both band widths tile it
-    rng = np.random.default_rng(11)
-    iq_u8 = rng.integers(0, 256, (c, b, 2)).astype(np.uint8)
-    w = pack_iq_u8(iq_u8)
-    tail = (jnp.zeros((c, nn - 4), jnp.float32), jnp.zeros((c, nn - 4), jnp.float32))
-    pt = jnp.zeros((c,), jnp.float32)
-
-    args = (co.taps_fm_in, tail, pt, jnp.asarray(w),
-            cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in))
-    (t128r, t128i), p128, y128 = ds4_disc_pallas(*args, interpret=True)
-    (t256r, t256i), p256, y256 = ds4_disc_pallas(*args, interpret=True,
-                                                 n_out_sub=256)
-    # f32 accumulation order differs with the contraction length (640 vs
-    # 1152 rows) -> last-ulp rounding only (measured max 7.5e-8)
-    np.testing.assert_allclose(np.asarray(y256), np.asarray(y128), atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(t256r), np.asarray(t128r))
-    np.testing.assert_array_equal(np.asarray(t256i), np.asarray(t128i))
-    np.testing.assert_allclose(np.asarray(p256), np.asarray(p128), atol=1e-6)
-    # with int8 dots on top (the two levers compose) the accumulation is
-    # int32 == associative -> band width cannot change the result at all
-    _, _, y256q = ds4_disc_pallas(*args, interpret=True, n_out_sub=256,
-                                  int8_dots=True)
-    _, _, y128q = ds4_disc_pallas(*args, interpret=True, int8_dots=True)
-    np.testing.assert_array_equal(np.asarray(y256q), np.asarray(y128q))
+    # The kernel evaluates the PLL phase detector as wrap(angle(x) + 2pi*t)
+    # (exact) while the scan path mirrors the reference's Chebyshev-phasor +
+    # atan2 arithmetic (~1e-7/step); through the feedback loop and the
+    # harmonic mixers this shows up as ~1e-4 audio differences.  The golden
+    # test (83 dB vs the compiled reference) is the accuracy gate.
+    np.testing.assert_allclose(
+        np.asarray(outs_p["audio"]), np.asarray(outs_s["audio"]), atol=1e-3
+    )
+    np.testing.assert_array_equal(
+        np.asarray(outs_p["rds_valid"]), np.asarray(outs_s["rds_valid"])
+    )
 
 
 def test_demod_block_packed_input_matches_planes():
-    """Full demod_block on packed words == plane form (both CPU fallback and
-    the packed fused-kernel unpack are exact)."""
-    from fm_radio_tpu.models.demod import demod_block, demod_init_state
-    from fm_radio_tpu.utils.transfer import pack_iq_u8
+    """Full demod_block on packed words == plane form (the unpack is exact)."""
+    from fm_radio.utils.transfer import pack_iq_u8
 
     cfg = CFG
     co = make_coeffs(cfg)
@@ -623,294 +322,21 @@ def test_demod_block_packed_input_matches_planes():
         np.asarray(outs_w["rds_pred"]), np.asarray(outs_p["rds_pred"]), atol=1e-5)
 
 
-def test_channelizer_pallas_matches_xla():
-    """Pallas channelizer (kernels/channelizer_pallas.py) vs the XLA
-    plane-form, streaming split included."""
-    from fm_radio_tpu.kernels.channelizer_pallas import channelize_pallas
-    from fm_radio_tpu.parallel.channelizer import channelize_p, make_channelizer_taps
+def test_demod_block_i8_planes_match_f32_planes():
+    """int8-plane ingest == the same samples as f32 planes on the XLA path
+    (the int8 -> f32 cast and +1 recenter are exact)."""
+    from fm_radio.utils.transfer import split_iq_i8
 
-    m, k = 8, 16
-    t = m * 4096
-    taps = jnp.asarray(make_channelizer_taps(m, k))
-    rng = np.random.default_rng(17)
-    x = rng.standard_normal((2, 2 * t)).astype(np.float32)
-    z0 = jnp.zeros(((k - 1) * m,), jnp.float32)
-    st_a = st_b = (z0, z0)
-    for blk in range(2):
-        sl = slice(blk * t, (blk + 1) * t)
-        xb = (jnp.asarray(x[0][sl]), jnp.asarray(x[1][sl]))
-        st_a, (ar, ai) = channelize_p(taps, st_a, xb, m)
-        st_b, (br, bi) = channelize_pallas(taps, st_b, xb, m, interpret=True)
-        np.testing.assert_allclose(np.asarray(br), np.asarray(ar), atol=2e-5)
-        np.testing.assert_allclose(np.asarray(bi), np.asarray(ai), atol=2e-5)
-    np.testing.assert_array_equal(np.asarray(st_a[0]), np.asarray(st_b[0]))
-
-
-def test_pll_pallas_non_power_of_two_channel_tile():
-    """c=2560 (5*512) used to crash the fixed c%2048 tiling assert; the
-    tile is now the largest power-of-two divisor."""
-    c, n = 2560, 128
-    coeffs = make_coeffs(CFG)
-    pilot = jnp.asarray(_pilot_signal(4, n))
-    pilot = jnp.tile(pilot, (c // 4, 1))
-    st0 = init_on_device(pilot_pll_init_state, c)
-    st_scan, taps = pilot_pll_scan(coeffs.pll, st0, pilot)
-    st_pal, dt = pilot_pll_pallas(CFG, st0, pilot, interpret=True)
-    np.testing.assert_allclose(np.asarray(dt), np.asarray(taps["dt"]), atol=2e-6)
-
-
-def test_bpsk_pallas_gcd_channel_tile():
-    """c > 512 and not divisible by 512 (e.g. 768 -> gcd tile 256): the
-    kernel must tile by gcd instead of crashing, output-identical to scan."""
-    c, n = 768, 256
-    coeffs = make_coeffs(CFG)
-    x = jnp.asarray(_rds_signal(c, n))
-    st0 = init_on_device(bpsk_init_state, c)
-
-    st_scan, outs_scan = bpsk_sync_scan(coeffs.bpsk, st0, x)
-    st_pal, outs_pal = bpsk_sync_pallas(CFG, st0, x, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(outs_pal["valid"]), np.asarray(outs_scan["valid"])
-    )
-    for name in st_scan._fields:
-        np.testing.assert_allclose(
-            np.asarray(getattr(st_scan, name)),
-            np.asarray(getattr(st_pal, name)), atol=1e-5, err_msg=name,
-        )
-
-
-def test_pll_chunked_gcd_lane_count():
-    """Chunked PLL with C*G not divisible by 2048 (1280*2 = 2560 -> gcd tile
-    512): must run, with chunk 0 bit-exact vs the sequential kernel."""
-    from dataclasses import replace
-
-    c, n, g = 1280, 4096, 2
-    t = np.arange(n) / 128000.0
-    x = (np.exp(2j * np.pi * 19000 * t)[None, :] * np.ones((c, 1))).astype(
-        np.complex64
-    )
-    pilot = jnp.asarray(x)
-    cfg_par = replace(CFG, pll_time_chunks=g, pll_chunk_warmup=512)
-    st0 = init_on_device(pilot_pll_init_state, c)
-    _, dt_seq = pilot_pll_pallas(CFG, st0, pilot, interpret=True)
-    _, dt_par = pilot_pll_pallas(cfg_par, st0, pilot, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(dt_par)[:, : n // g], np.asarray(dt_seq)[:, : n // g]
-    )
-
-
-def test_channelizer_tile_fits_vmem():
-    """pick_tile_chan must budget VMEM against the channel count: large m
-    shrinks (or refuses) the time tile instead of OOMing at compile."""
-    from fm_radio_tpu.kernels.channelizer_pallas import (
-        _chan_vmem_bytes, pick_tile_chan,
-    )
-
-    n_t_8 = pick_tile_chan(1 << 16, 8)              # q=16: rotation scratch
-    assert n_t_8 is not None
-    assert _chan_vmem_bytes(n_t_8, 8) <= 12 << 20
-    assert pick_tile_chan(1 << 16, 256) is None     # flat kernel: m <= 128
-    assert pick_tile_chan(1 << 16, 1024) is None
-    # the production wideband shapes tile at full VMEM density
-    n_t_q = pick_tile_chan(1 << 17, 32, n_captures=64)
-    assert n_t_q is not None
-    assert _chan_vmem_bytes(n_t_q, 32) <= 12 << 20
-
-
-def test_kernel_tables_match_in_trace_construction():
-    """DemodCoeffs.kernel_tables (design-time) must equal what the kernels
-    would build in-trace — guards the round-4 perf fix (docs/PERF.md: XLA
-    re-gathered the in-trace tables EVERY scan step) against staleness if a
-    band constructor changes without _make_kernel_tables following."""
-    from fm_radio_tpu.kernels.frontend_pallas import (
-        _band_matrix, quantize_band_int8,
-    )
-    from fm_radio_tpu.kernels.midend_pallas import _band_m, mid_iir_params
-
-    cfg = DemodConfig(frontend_int8=True)
-    co = make_coeffs(cfg)
-    tbl = co.kernel_tables
-    assert set(tbl) == {
-        "k1_band", "k1_i8", "band_fm_out", "band_hilbert", "mid_iir",
-        "band_audio_lpr", "band_audio_lmr", "band_rds",
-    }
-    np.testing.assert_array_equal(
-        np.asarray(tbl["k1_band"]),
-        np.asarray(_band_matrix(co.taps_fm_in, cfg.frontend_band_no)))
-    for got, want in zip(tbl["k1_i8"],
-                         quantize_band_int8(tbl["k1_band"])):
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-    np.testing.assert_array_equal(
-        np.asarray(tbl["band_fm_out"]), np.asarray(_band_m(co.taps_fm_out, 2)))
-    np.testing.assert_array_equal(
-        np.asarray(tbl["band_hilbert"]), np.asarray(_band_m(co.taps_hilbert, 1)))
-    np.testing.assert_array_equal(
-        np.asarray(tbl["band_audio_lpr"]),
-        np.asarray(_band_m(co.taps_audio_lpr, 4)))
-    np.testing.assert_array_equal(
-        np.asarray(tbl["band_audio_lmr"]),
-        np.asarray(_band_m(co.taps_audio_lmr, 4)))
-    np.testing.assert_array_equal(
-        np.asarray(tbl["band_rds"]), np.asarray(_band_m(co.taps_rds, 8)))
-    for got, want in zip(
-            tbl["mid_iir"],
-            mid_iir_params(co, bool(cfg.use_deemphasis_filter),
-                           _from_tables=False)):
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_no_table_gathers_inside_scan_body():
-    """The perf property itself: a lax.scan over the fused demod_block must
-    contain NO large gather (band-table construction) in its body jaxpr —
-    the exact regression that cost ~2.2 ms/block before round 4."""
-    from dataclasses import replace
-
-    from fm_radio_tpu.models.demod import demod_block, demod_init_state
-
-    cfg = replace(DemodConfig(frontend_int8=True), loop_impl="pallas")
-    co = make_coeffs(cfg)
-    c, b = 8, 16384
-    st0 = demod_init_state(cfg, c)
-    x = jnp.zeros((2, c, b), jnp.int8)
-
-    def scanned(state, x):
-        def step(st, _):
-            st, outs = demod_block(cfg, co, st, x)
-            return st, jnp.sum(outs["audio"])
-
-        return jax.lax.scan(step, state, None, length=2)
-
-    jaxpr = jax.make_jaxpr(scanned)(st0, x)
-
-    big_gathers = []
-
-    def walk(jx, in_scan):
-        for eqn in jx.eqns:
-            if eqn.primitive.name == "gather" and in_scan:
-                n = int(np.prod(eqn.outvars[0].aval.shape))
-                if n >= 16384:  # the smallest band table is [256, 128]
-                    big_gathers.append((eqn.outvars[0].aval.shape, n))
-            for v in eqn.params.values():
-                inner = getattr(v, "jaxpr", None)
-                if inner is not None:
-                    walk(inner, in_scan or eqn.primitive.name == "scan")
-
-    walk(jaxpr.jaxpr, False)
-    assert not big_gathers, (
-        f"band-table gathers re-entered the scan body: {big_gathers}")
-
-
-def test_k12_fused_matches_split_kernels():
-    """Fused K1+K2 kernel (kernels/k12_pallas.py) vs the split
-    ds4_disc_pallas + midend_pallas kernels: BIT-identical outputs and
-    state (same tile boundaries, same op order), streaming across blocks."""
-    from fm_radio_tpu.kernels.frontend_pallas import ds4_disc_pallas
-    from fm_radio_tpu.kernels.k12_pallas import k12_pallas
-    from fm_radio_tpu.kernels.midend_pallas import midend_pallas
-    from fm_radio_tpu.models.demod import demod_init_state
-    from fm_radio_tpu.utils.transfer import split_iq_i8
-
-    cfg = DemodConfig(frontend_int8=True)
-    co = make_coeffs(cfg)
-    c, b = 4, 8192  # b=8192 -> t_blk=4096, 2 tiles: smallest multi-tile shape
-    rng = np.random.default_rng(7)
-    iq_u8 = rng.integers(0, 256, size=(c, 2 * b, 2), dtype=np.uint8)
-    x = jnp.asarray(split_iq_i8(iq_u8))
-
-    st_f = demod_init_state(cfg, c)
-    st_s = demod_init_state(cfg, c)
-    for blk in range(2):
-        xb = x[:, :, blk * b : (blk + 1) * b]
-
-        st_f2, iq_f, th_f = k12_pallas(co, cfg, st_f, xb, interpret=True)
-
-        st_s = dict(st_s)
-        tail, prev, fm_demod = ds4_disc_pallas(
-            co.taps_fm_in, (st_s["ds_fm_in"].real, st_s["ds_fm_in"].imag),
-            st_s["disc_prev_theta"], xb,
-            cfg.analog.f_wbfm_deviation, float(cfg.rates.fs_fm_in),
-            interpret=True, int_input=True, int8_dots=True,
-            band_tables=co.kernel_tables,
-        )
-        st_s["ds_fm_in"] = jax.lax.complex(*tail)
-        st_s["disc_prev_theta"] = prev
-        st_s2, iq_s, th_s = midend_pallas(co, cfg, st_s, fm_demod,
-                                          interpret=True)
-
-        np.testing.assert_array_equal(np.asarray(iq_f[0]), np.asarray(iq_s[0]))
-        np.testing.assert_array_equal(np.asarray(iq_f[1]), np.asarray(iq_s[1]))
-        np.testing.assert_array_equal(np.asarray(th_f), np.asarray(th_s))
-        for key in ("ds_fm_in", "disc_prev_theta"):
-            np.testing.assert_array_equal(
-                np.asarray(st_f2[key]), np.asarray(st_s[key]), err_msg=key)
-        for key in ("ds_fm_out", "hilbert", "agc_pilot"):
-            np.testing.assert_array_equal(
-                np.asarray(st_f2[key]), np.asarray(st_s2[key]), err_msg=key)
-        for key in ("deemph", "peak_pilot"):
-            for a, bb in zip(jax.tree.leaves(st_f2[key]),
-                             jax.tree.leaves(st_s2[key])):
-                np.testing.assert_array_equal(
-                    np.asarray(a), np.asarray(bb), err_msg=key)
-        st_f, st_s = st_f2, st_s2
-
-
-@pytest.mark.slow
-def test_k12_wide_tile_bit_exact(monkeypatch):
-    """FMTPU_K12_T=8192 (double-width fused tile) is now BIT-identical to
-    the default 4096 tiling: the pilot-AGC power accumulation is chunked at
-    the production width inside _midend_body (round-5; the round-4 lens was
-    rejected precisely because the wider tile changed this sum's order).
-    The IIR/tail handoffs were already width-exact."""
-    from fm_radio_tpu.kernels.k12_pallas import k12_pallas, pick_tiles_k12
-    from fm_radio_tpu.models.demod import demod_init_state
-    from fm_radio_tpu.utils.transfer import split_iq_i8
-
-    cfg = DemodConfig(frontend_int8=True)
-    co = make_coeffs(cfg)
-    c, b = 4, 16384
-    rng = np.random.default_rng(8)
-    iq_u8 = rng.integers(0, 256, size=(c, b, 2), dtype=np.uint8)
-    x = jnp.asarray(split_iq_i8(iq_u8))
-
-    st4 = k12_pallas(co, cfg, demod_init_state(cfg, c), x, interpret=True)
-    monkeypatch.setenv("FMTPU_K12_T", "8192")
-    assert pick_tiles_k12(c, b) == (c, 8192)
-    st8 = k12_pallas(co, cfg, demod_init_state(cfg, c), x, interpret=True)
-
-    for a, bb in zip(jax.tree.leaves(st4), jax.tree.leaves(st8)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(bb))
-
-
-@pytest.mark.slow
-def test_k12_phase_split_ingest_bit_exact():
-    """Phase-split ingest ([2, 4, C, B/4] polyphase planes — the wideband
-    channelizer's native output) through _k12_kernel_ps is BIT-identical to
-    the flat [2, C, B] i8 form: same quantized band rows re-arranged per
-    phase, int32 phase partial sums add exactly (frontend_pallas.
-    phase_split_band_int8)."""
-    from fm_radio_tpu.kernels.k12_pallas import k12_pallas
-    from fm_radio_tpu.models.demod import demod_init_state
-    from fm_radio_tpu.utils.transfer import split_iq_i8
-
-    cfg = DemodConfig(frontend_int8=True)
-    co = make_coeffs(cfg)
-    c, b = 4, 8192
-    rng = np.random.default_rng(9)
-    iq_u8 = rng.integers(0, 256, size=(c, 2 * b, 2), dtype=np.uint8)
-    x = jnp.asarray(split_iq_i8(iq_u8))
-
-    st_f = demod_init_state(cfg, c)
-    st_p = demod_init_state(cfg, c)
-    for blk in range(2):
-        xb = x[:, :, blk * b : (blk + 1) * b]
-        x4 = jnp.moveaxis(xb.reshape(2, c, b // 4, 4), 3, 1)
-
-        st_f2, iq_f, th_f = k12_pallas(co, cfg, st_f, xb, interpret=True)
-        st_p2, iq_p, th_p = k12_pallas(co, cfg, st_p, x4, interpret=True)
-
-        np.testing.assert_array_equal(np.asarray(iq_f[0]), np.asarray(iq_p[0]))
-        np.testing.assert_array_equal(np.asarray(iq_f[1]), np.asarray(iq_p[1]))
-        np.testing.assert_array_equal(np.asarray(th_f), np.asarray(th_p))
-        for a, bb in zip(jax.tree.leaves(st_f2), jax.tree.leaves(st_p2)):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(bb))
-        st_f, st_p = st_f2, st_p2
+    co = make_coeffs(CFG)
+    c, b = 3, 16384
+    rng = np.random.default_rng(12)
+    iq_u8 = rng.integers(0, 256, (c, b, 2)).astype(np.uint8)
+    i8 = split_iq_i8(iq_u8)
+    f32 = i8.astype(np.float32) + 1.0
+    st0 = demod_init_state(CFG, c)
+    st_i, o_i = demod_block(CFG, co, st0, jnp.asarray(i8))
+    st_f, o_f = demod_block(CFG, co, st0, jnp.asarray(f32))
+    for k in ("audio", "rds_pred", "rds_valid"):
+        np.testing.assert_array_equal(np.asarray(o_i[k]), np.asarray(o_f[k]))
+    for a, b_ in zip(jax.tree.leaves(st_i), jax.tree.leaves(st_f)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b_))

@@ -1,13 +1,16 @@
 """Source lint: every jnp.dot / jnp.einsum / jnp.matmul outside kernels/
-must pass an explicit ``precision=`` (or ``preferred_element_type`` for the
-deliberate-bf16 paths).
+must pass an explicit ``precision=``.
 
-Rationale: the default matmul precision is f32 on CPU but bf16 on TPU, so a
-bare product in coefficient prep or state propagation is a TPU-only
-accuracy bug that the CPU CI backend can never see (this is how the pilot
-peak resonator lost ~50 dB of golden SNR, see ops/iir._power_stack).  The
-Pallas kernels (fm_radio_tpu/kernels/) manage precision explicitly via
-bf16 hi/lo splits and are exempt.
+Rationale: the default float32 matmul precision is full f32 on the CPU but
+TF32 (a 10-bit mantissa, ~3 decimal digits) on a GPU, so a bare product in
+coefficient prep or state propagation is a card-only accuracy bug that the
+CPU test backend can never see (this is how the pilot peak resonator lost
+~50 dB of golden SNR on an accelerator, see ops/iir._power_stack).  Every
+product states the precision it needs: the FIR/IIR filter products take
+ops/fir.FIR_PRECISION / ops/iir.IIR_PRECISION, chosen from the audio SNR
+measured on the card; coefficient prep, state propagation and the
+channelizer's DFT take HIGHEST.  The Pallas loop kernels
+(fm_radio/kernels/) contain no matrix products and are exempt.
 """
 
 import ast
@@ -15,11 +18,11 @@ import os
 
 import pytest
 
-PKG = os.path.join(os.path.dirname(__file__), "..", "fm_radio_tpu")
+PKG = os.path.join(os.path.dirname(__file__), "..", "fm_radio")
 TARGETS = {"dot", "einsum", "matmul", "tensordot", "vdot"}
 
 
-# lax-level products and convolutions default to bf16 on TPU exactly like
+# lax-level products and convolutions default to TF32 on a GPU exactly like
 # the jnp wrappers; jnp.convolve has no precision= pre-jax-0.4-ish callers
 # forget exists; the @ operator is jnp.matmul in disguise.
 LAX_TARGETS = {"dot_general", "dot", "conv_general_dilated", "conv",
@@ -77,6 +80,6 @@ def test_no_default_precision_products():
             for lineno, name in _bare_products(p):
                 offenders.append(f"{os.path.relpath(p, PKG)}:{lineno} jnp.{name}")
     assert not offenders, (
-        "jnp products without explicit precision= (bf16 by default on TPU!):\n"
+        "jnp products without explicit precision= (TF32 by default on a GPU!):\n"
         + "\n".join(offenders)
     )

@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.signal as sig
 
-from fm_radio_tpu.ops import (
+from fm_radio.ops import (
     agc_init_state,
     agc_process,
     apply_harmonic_pll,
@@ -22,8 +22,8 @@ from fm_radio_tpu.ops import (
     polyphase_decimate,
     polyphase_init_state,
 )
-from fm_radio_tpu.ops import create_fir_hilbert
-from fm_radio_tpu.ops.iir import iir_filter, iir_init_state, iir_filter_complex
+from fm_radio.ops import create_fir_hilbert
+from fm_radio.ops.iir import iir_filter, iir_init_state, iir_filter_complex
 
 RNG = np.random.default_rng(0)
 
@@ -241,7 +241,7 @@ def test_harmonic_pll_mixer():
 
 
 def test_polyphase_decimate_planes_matches_complex():
-    from fm_radio_tpu.ops.fir import polyphase_decimate, polyphase_decimate_p
+    from fm_radio.ops.fir import polyphase_decimate, polyphase_decimate_p
 
     taps = create_fir_lpf(64, 0.2)
     x = (RNG.standard_normal((3, 1024)) + 1j * RNG.standard_normal((3, 1024))).astype(
@@ -265,7 +265,7 @@ def test_polyphase_decimate_planes_matches_complex():
 
 
 def test_hilbert_planes_matches_complex():
-    from fm_radio_tpu.ops.fir import hilbert_fir, hilbert_fir_p, hilbert_init_state
+    from fm_radio.ops.fir import hilbert_fir, hilbert_fir_p, hilbert_init_state
 
     taps = create_fir_hilbert(65)
     x = RNG.standard_normal((2, 700)).astype(np.float32)

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.signal as sig
 
-from fm_radio_tpu.ops.design import create_fir_lpf
-from fm_radio_tpu.ops.fir import polyphase_upsample, polyphase_upsample_init_state
-from fm_radio_tpu.ops.hilbert_fft import delay_line, hilbert_fft
-from fm_radio_tpu.ops.spectrum import fft_mag_db, fft_mag_update
+from fm_radio.ops.design import create_fir_lpf
+from fm_radio.ops.fir import polyphase_upsample, polyphase_upsample_init_state
+from fm_radio.ops.hilbert_fft import delay_line, hilbert_fft
+from fm_radio.ops.spectrum import fft_mag_db, fft_mag_update
 
 RNG = np.random.default_rng(21)
 
@@ -81,7 +81,7 @@ def test_fft_mag_modes():
 
 
 def test_spectrum_view_triggers():
-    from fm_radio_tpu.ops.spectrum import (
+    from fm_radio.ops.spectrum import (
         MODE_MAX_HOLD,
         TRIGGER_SINGLE,
         SpectrumView,
@@ -146,7 +146,7 @@ def test_delay_line_zero_delay():
 def test_fir_designers_reject_single_tap():
     import pytest
 
-    from fm_radio_tpu.ops.design import create_fir_bpf, create_fir_hpf
+    from fm_radio.ops.design import create_fir_bpf, create_fir_hpf
 
     for fn, args in ((create_fir_lpf, (1, 0.5)), (create_fir_hpf, (1, 0.5)),
                      (create_fir_bpf, (1, 0.2, 0.5))):

@@ -3,18 +3,18 @@ group sync + error correction, group-type decoders, database fill."""
 
 import numpy as np
 
-from fm_radio_tpu.io.synth import encode_rds_group, rds_bits_to_symbols
-from fm_radio_tpu.rds import (
+from fm_radio.io.synth import encode_rds_group, rds_bits_to_symbols
+from fm_radio.rds import (
     OFFSET_WORDS,
     calculate_crc10,
     crc10_bitserial,
     get_error_from_syndrome,
 )
-from fm_radio_tpu.rds.chain import RDSDecodingChain, RDSFullChain
-from fm_radio_tpu.rds.crc import validate_codeword
-from fm_radio_tpu.rds.database import TrafficAnnouncement
-from fm_radio_tpu.rds.decoder import mjd_to_ymd
-from fm_radio_tpu.rds.manchester import DifferentialManchesterDecoder
+from fm_radio.rds.chain import RDSDecodingChain, RDSFullChain
+from fm_radio.rds.crc import validate_codeword
+from fm_radio.rds.database import TrafficAnnouncement
+from fm_radio.rds.decoder import mjd_to_ymd
+from fm_radio.rds.manchester import DifferentialManchesterDecoder
 
 RNG = np.random.default_rng(42)
 
@@ -170,14 +170,14 @@ def test_decoder_0a_service_name_and_flags():
 
 def test_decoder_2a_radiotext():
     chain = RDSDecodingChain()
-    text = b"HELLO TPU WORLD!"
+    text = b"HELLO JAX WORLD!"
     groups = []
     for seg in range(4):
         c = (text[4 * seg] << 8) | text[4 * seg + 1]
         d = (text[4 * seg + 2] << 8) | text[4 * seg + 3]
         groups.append(_mk_group(gtype=2, extra_b=seg, c=c, d=d))
     chain.process(_groups_to_bytes(groups))
-    assert chain.db.radio_text_str.startswith("HELLO TPU WORLD!")
+    assert chain.db.radio_text_str.startswith("HELLO JAX WORLD!")
 
 
 def test_decoder_4a_clock_time():
@@ -338,7 +338,7 @@ def test_decoder_af_lfmf_escape_and_list_commit():
 def test_station_schedule_long_af_list_commits():
     """9 alternative frequencies need >4 0A groups; the schedule must carry
     every announced code so the decoder's pending list reaches the count."""
-    from fm_radio_tpu.io.synth import station_group_schedule
+    from fm_radio.io.synth import station_group_schedule
 
     af = [87.6 + 0.1 * i for i in range(9)]
     groups = station_group_schedule(0x1234, ps="NINEAFS ", af_mhz=af)
@@ -375,8 +375,8 @@ def test_fast_resync_recovers_burst_in_one_group():
     default on streams whose errored groups keep a valid block."""
     import numpy as np
 
-    from fm_radio_tpu.rds.group_sync import RDSGroupSync
-    from fm_radio_tpu.rds.crc import OFFSET_WORDS, crc10_bitserial
+    from fm_radio.rds.group_sync import RDSGroupSync
+    from fm_radio.rds.crc import OFFSET_WORDS, crc10_bitserial
 
     def group_bits(pi):
         words = [(pi, "A"), ((4 << 12) | 0x1F, "B"), (0x4142, "C"),

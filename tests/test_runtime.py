@@ -4,12 +4,12 @@ implementations (pcm reblock, WAV format, Manchester, CRC10, group sync)."""
 import numpy as np
 import pytest
 
-from fm_radio_tpu import runtime
-from fm_radio_tpu.io.pcm import c64_to_u8
-from fm_radio_tpu.io.synth import encode_rds_group, rds_bits_to_symbols
-from fm_radio_tpu.io.wav import read_wav_int16, write_wav_int16
-from fm_radio_tpu.rds.crc import crc10_bitserial
-from fm_radio_tpu.rds.manchester import DifferentialManchesterDecoder
+from fm_radio import runtime
+from fm_radio.io.pcm import c64_to_u8
+from fm_radio.io.synth import encode_rds_group, rds_bits_to_symbols
+from fm_radio.io.wav import read_wav_int16, write_wav_int16
+from fm_radio.rds.crc import crc10_bitserial
+from fm_radio.rds.manchester import DifferentialManchesterDecoder
 
 pytestmark = pytest.mark.skipif(
     not runtime.available(), reason="native runtime not buildable"
@@ -93,7 +93,7 @@ def test_native_rds_decoder_matches_python_chain():
     assert list(groups_in[1]) in full
 
     # python chain agreement on the same symbols
-    from fm_radio_tpu.rds.chain import RDSFullChain
+    from fm_radio.rds.chain import RDSFullChain
 
     py = RDSFullChain()
     py.process_symbols(symbols)
@@ -140,7 +140,7 @@ def test_native_rds_chain_matches_python_at_app_level():
     symbols."""
     if not runtime.available():
         pytest.skip("native runtime not built")
-    from fm_radio_tpu.rds.chain import NativeRDSFullChain, RDSFullChain
+    from fm_radio.rds.chain import NativeRDSFullChain, RDSFullChain
 
     groups_in = [
         (0xBEEF, (0 << 12) | (1 << 10) | seg, 0xE101,
@@ -170,7 +170,7 @@ def test_native_rds_decoder_many_groups_one_call():
     """A single process_symbols call with hundreds of groups must return
     them ALL (a fixed 64-group output buffer once silently dropped the
     rest) without overrunning the bit staging buffer."""
-    from fm_radio_tpu.runtime import NativeRDSBitDecoder
+    from fm_radio.runtime import NativeRDSBitDecoder
 
     n_groups = 300
     blocks = (0x1234, 0x0000, 0x1111, 0x2222)
@@ -209,7 +209,7 @@ def test_native_rds_decoder_matches_python_under_bit_errors():
         got.extend(native.process_symbols(chunk))
     native_seq = [(g["data"], g["valid"]) for g in got]
 
-    from fm_radio_tpu.rds.chain import RDSFullChain
+    from fm_radio.rds.chain import RDSFullChain
 
     py = RDSFullChain()
     py.process_symbols(symbols)

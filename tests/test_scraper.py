@@ -8,12 +8,12 @@ import struct
 
 import numpy as np
 
-from fm_radio_tpu.io.scraper import (
+from fm_radio.io.scraper import (
     FMScraper,
     IncrementalWavWriter,
     reference_time_string,
 )
-from fm_radio_tpu.io.wav import read_wav_int16, write_wav_int16
+from fm_radio.io.wav import read_wav_int16, write_wav_int16
 
 RNG = np.random.default_rng(7)
 

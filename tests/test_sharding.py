@@ -6,18 +6,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from fm_radio_tpu.config import DemodConfig
-from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
-from fm_radio_tpu.models.app import demod_stream
-from fm_radio_tpu.models.demod import demod_init_state, make_coeffs
-from fm_radio_tpu.parallel import (
+from fm_radio.config import DemodConfig
+from fm_radio.io.synth import FMModulator, ModulatorConfig
+from fm_radio.models.app import demod_stream
+from fm_radio.models.demod import demod_init_state, make_coeffs
+from fm_radio.parallel import (
     channelize,
     channelizer_init_state,
     demod_time_parallel,
     make_channelizer_taps,
     make_mesh,
 )
-from fm_radio_tpu.parallel.sharding import demod_channels_sharded
+from fm_radio.parallel.sharding import demod_channels_sharded
 
 BLOCK = 16384
 
@@ -42,7 +42,7 @@ def test_channel_sharded_matches_single(iq):
         cfg, coeffs, state, jnp.asarray(x), mesh
     )
     st_local, outs_local = None, None
-    from fm_radio_tpu.models.demod import demod_block
+    from fm_radio.models.demod import demod_block
 
     st_local, outs_local = demod_block(cfg, coeffs, demod_init_state(cfg, 8), jnp.asarray(x))
     np.testing.assert_allclose(
@@ -53,15 +53,12 @@ def test_channel_sharded_matches_single(iq):
 @pytest.mark.slow
 def test_time_parallel_i8_planes_matches_packed(iq):
     """[2, C, T] int8-plane ingest through the time-sharded path (halo
-    ppermute on int8 — HALF the ICI bytes) is BIT-identical to the packed
-    f32-word form under frontend_int8: the int8-direct kernel and the
-    packed int8 scratch path share operands and dot order."""
-    from dataclasses import replace
+    ppermute on int8 — HALF the bytes between devices) is BIT-identical to
+    the packed f32-word form: both decode to the same exact samples."""
+    from fm_radio.io.pcm import c64_to_u8
+    from fm_radio.utils.transfer import pack_iq_u8, split_iq_i8
 
-    from fm_radio_tpu.io.pcm import c64_to_u8
-    from fm_radio_tpu.utils.transfer import pack_iq_u8, split_iq_i8
-
-    cfg = replace(DemodConfig(), frontend_int8=True)
+    cfg = DemodConfig()
     coeffs = make_coeffs(cfg)
     u8 = c64_to_u8(np.asarray(iq)[: BLOCK * 8]).reshape(-1, 2)
     w = pack_iq_u8(u8)[None, :]           # [1, T] packed words
@@ -145,7 +142,7 @@ def test_time_parallel_rds_groups_match_sequential():
     payload seam is tolerated (the chain's 3-group resync handles it, as it
     would a real burst error) but every decoded group must be genuine, and
     the parallel stream must recover the PI code and most of the traffic."""
-    from fm_radio_tpu.rds.chain import RDSFullChain
+    from fm_radio.rds.chain import RDSFullChain
 
     cfg = DemodConfig()
     coeffs = make_coeffs(cfg)
@@ -208,7 +205,7 @@ def test_time_parallel_rds_groups_match_sequential():
 
 
 def test_rds_warmup_blocks_sizing():
-    from fm_radio_tpu.parallel import rds_warmup_blocks
+    from fm_radio.parallel import rds_warmup_blocks
 
     assert rds_warmup_blocks(16384) == 16      # 0.25 s at 1.024 MHz
     assert rds_warmup_blocks(65536) == 4
@@ -224,8 +221,8 @@ def test_superblock_stream_matches_sequential():
     stream's RDS traffic (boundaries are ordinary warm-up seams, not cold
     starts) and settled audio must match.
     """
-    from fm_radio_tpu.parallel import demod_superblock_stream
-    from fm_radio_tpu.rds.chain import RDSFullChain
+    from fm_radio.parallel import demod_superblock_stream
+    from fm_radio.rds.chain import RDSFullChain
 
     cfg = DemodConfig()
     coeffs = make_coeffs(cfg)
@@ -356,8 +353,8 @@ def test_channelizer_streaming():
 @pytest.mark.slow
 def test_pod_scale_channel_count():
     """Config-5 shape scaled for CI: 1024 channels sharded over 8 devices
-    (on a pod this mesh extends over hosts via DCN; the program is
-    identical — only the Mesh construction changes)."""
+    (across hosts the mesh spans processes; the program is identical —
+    only the Mesh construction changes)."""
     cfg = DemodConfig()
     coeffs = make_coeffs(cfg)
     c, block = 1024, 4096
@@ -378,9 +375,9 @@ def test_wideband_stations_to_audio_and_rds():
     (different audio tones + different RDS PI codes) at different carriers in
     one wideband capture, channelize, then run the channel-batched demod on
     the extracted stations — each must recover its own tone and PI code."""
-    from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
-    from fm_radio_tpu.models.app import App
-    from fm_radio_tpu.parallel.channelizer import (
+    from fm_radio.io.synth import FMModulator, ModulatorConfig
+    from fm_radio.models.app import App
+    from fm_radio.parallel.channelizer import (
         channelize,
         channelizer_init_state,
         make_channelizer_taps,
@@ -432,8 +429,8 @@ def test_wideband_stations_to_audio_and_rds():
 def test_channelizer_packed_matches_planes():
     """Packed u8-word wideband ingest == the centered plane path (the
     unpack is exact integer arithmetic)."""
-    from fm_radio_tpu.parallel.channelizer import channelize_p
-    from fm_radio_tpu.utils.transfer import pack_iq_u8
+    from fm_radio.parallel.channelizer import channelize_p
+    from fm_radio.utils.transfer import pack_iq_u8
 
     m, k = 8, 8
     t = m * 1024

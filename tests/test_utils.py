@@ -6,12 +6,12 @@ import time
 import numpy as np
 import jax.numpy as jnp
 
-from fm_radio_tpu.config import DemodConfig
-from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig
-from fm_radio_tpu.models.demod import BroadcastFMDemod, demod_init_state
-from fm_radio_tpu.ops.resample import linear_resample, mix_sources
-from fm_radio_tpu.utils.checkpoint import load_state, roundtrip_bytes, save_state
-from fm_radio_tpu.utils.profiler import Profiler
+from fm_radio.config import DemodConfig
+from fm_radio.io.synth import FMModulator, ModulatorConfig
+from fm_radio.models.demod import BroadcastFMDemod, demod_init_state
+from fm_radio.ops.resample import linear_resample, mix_sources
+from fm_radio.utils.checkpoint import load_state, roundtrip_bytes, save_state
+from fm_radio.utils.profiler import Profiler
 
 BLOCK = 16384
 
@@ -102,7 +102,7 @@ def test_mix_sources():
 
 
 def test_lru_cache_semantics():
-    from fm_radio_tpu.utils.lru import LRUCache
+    from fm_radio.utils.lru import LRUCache
 
     c = LRUCache(2)
     c.put("a", 1)
@@ -119,7 +119,7 @@ def test_lru_cache_semantics():
 def test_update_controls_coeff_redesign_is_lru_cached():
     """Toggling between control settings must not re-run the designer pass
     (the reference's dirty-flag UpdateFilters; here an LRU keyed by config)."""
-    from fm_radio_tpu.models.demod import BroadcastFMDemod
+    from fm_radio.models.demod import BroadcastFMDemod
 
     d = BroadcastFMDemod()
     d.update_controls(use_deemphasis_filter=False)
@@ -137,7 +137,7 @@ def test_pack_iq_u8_23_round_trip():
     residue planes line up with the full-rate planes at stride 3."""
     import numpy as np
 
-    from fm_radio_tpu.utils.transfer import (
+    from fm_radio.utils.transfer import (
         pack_iq_u8,
         pack_iq_u8_23,
         unpack_iq_words,
@@ -158,3 +158,39 @@ def test_pack_iq_u8_23_round_trip():
     for k, (ik, qk) in enumerate(((i0, q0), (i1, q1), (i2, q2))):
         np.testing.assert_array_equal(np.asarray(ik), re[:, k::3])
         np.testing.assert_array_equal(np.asarray(qk), im[:, k::3])
+
+
+def test_cache_dir_follows_env_var(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache and the program
+    sets no other directory."""
+    import jax
+
+    from fm_radio.utils import cache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    assert cache.cache_dir() == str(tmp_path)
+    assert cache.enable_persistent_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_cache_dir_default_is_inside_checkout(monkeypatch):
+    """Unset, the cache is a fixed directory inside the checkout that
+    .gitignore lists."""
+    import os
+
+    import jax
+
+    from fm_radio.utils import cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.cache_dir() == os.path.join(repo, ".jax_cache")
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert cache.enable_persistent_cache() == cache.DEFAULT_DIR
+        assert jax.config.jax_compilation_cache_dir == cache.DEFAULT_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)

@@ -27,9 +27,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from fm_radio_tpu.io.pcm import c64_to_u8, u8_to_c64  # noqa: E402
-from fm_radio_tpu.io.synth import FMModulator, ModulatorConfig  # noqa: E402
-from fm_radio_tpu.models.app import App  # noqa: E402
+from fm_radio.io.pcm import c64_to_u8, u8_to_c64  # noqa: E402
+from fm_radio.io.synth import FMModulator, ModulatorConfig  # noqa: E402
+from fm_radio.models.app import App  # noqa: E402
 
 GROUPS = [
     (0x1234, (0 << 12) | (1 << 10) | 0b00000, 0xE101, 0x4142),  # 0A
@@ -91,21 +91,13 @@ def run_point(iq_clean: np.ndarray, cnr_db: float, block: int,
     # u8 front-end quantization round trip (clipping included)
     u8 = c64_to_u8(noisy)
 
+    app = App(block_size=block, channels=1)
     if ingest == "i8":
-        # the PRODUCTION path: int8-plane ingest + int8-direct fused front
-        # end (round-5 verdict item 5: the threshold region is where the
-        # int8 quantization could bite — run the sweep through the exact
-        # kernels the headline uses, on the chip)
-        import dataclasses
+        # the production ingest: the capture's bytes as int8 planes
+        from fm_radio.utils.transfer import split_iq_i8
 
-        from fm_radio_tpu.config import DemodConfig
-        from fm_radio_tpu.utils.transfer import split_iq_i8
-
-        cfg = dataclasses.replace(DemodConfig(), frontend_int8=True)
-        app = App(block_size=block, cfg=cfg, channels=1, integer_input=True)
         app.process(split_iq_i8(u8.reshape(-1, 2))[:, None, :])
     else:
-        app = App(block_size=block, channels=1, integer_input=True)
         app.process(u8_to_c64(u8))
 
     fs_audio = app.demod.fs_audio
@@ -144,8 +136,8 @@ def main(argv=None) -> None:
     ap.add_argument("--echo-db", type=float, default=-100.0,
                     help="echo level vs main path (> -90 enables it)")
     ap.add_argument("--ingest", default="c64", choices=("c64", "i8"),
-                    help="i8 = production int8-plane ingest + int8-direct "
-                         "front end (the bench/headline kernel path)")
+                    help="i8 = production int8-plane ingest (the "
+                         "bench/headline path)")
     ap.add_argument("--json", default=None, help="write JSONL to this path")
     ap.add_argument("--markdown", action="store_true",
                     help="print a markdown table")

@@ -26,8 +26,8 @@ def _load_taps(path: str, block: int = 65536) -> dict:
             for f in sorted(os.listdir(path))
             if f.endswith(".npy")
         }
-    from fm_radio_tpu.io.pcm import iter_pcm_blocks
-    from fm_radio_tpu.models.demod import BroadcastFMDemod
+    from fm_radio.io.pcm import iter_pcm_blocks
+    from fm_radio.models.demod import BroadcastFMDemod
 
     d = BroadcastFMDemod(channels=1)
     outs = None
